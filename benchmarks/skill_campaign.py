@@ -2,7 +2,7 @@
 (VERDICT r4 #5).
 
 Same data, same budget, same calibration for every processor family:
-drives the train-mesh workflow (`gwen_tpu.cli.train_mesh.main`) once per
+drives the train-mesh workflow (`gwen.cli.train_mesh.main`) once per
 processor and prints one JSON line each with the held-out skill scores
 (fair CRPS, ensemble-mean RMSE, spread/error ratio after closed-form
 inflation calibration). The reference's raison d'être is ensemble skill
@@ -12,8 +12,8 @@ this table IS the baseline, self-established.
   GWEN_SKILL_LEVELS=6 GWEN_SKILL_EPOCHS=3 GWEN_SKILL_PROCS=gcn,attention \
       python benchmarks/skill_campaign.py
 
-All runs share one process (one TPU client init); runs are sequential —
-never run two TPU processes concurrently.
+All runs share one process (one device client); runs are sequential —
+one process per card.
 """
 
 from __future__ import annotations
@@ -28,17 +28,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main() -> None:
-    import jax
+    from gwen.compile_cache import enable_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    enable_compile_cache()
 
-    from gwen_tpu.cli import train_mesh
-    from gwen_tpu.config import GwenConfig
+    from gwen.cli import train_mesh
+    from gwen.config import GwenConfig
 
     levels = int(os.environ.get("GWEN_SKILL_LEVELS", "6"))
     epochs = int(os.environ.get("GWEN_SKILL_EPOCHS", "3"))
@@ -67,7 +62,7 @@ def main() -> None:
         if os.environ.get("GWEN_SKILL_REMAT"):
             cfg.train.remat = True
         cfg.run.registry_root = os.environ.get(
-            "GWEN_SKILL_REGISTRY", "/tmp/gwen_skill_runs"
+            "GWEN_SKILL_REGISTRY", "runs"
         )
         cfg.run.run_name = f"skill_{proc}_L{levels}"
         t0 = time.time()

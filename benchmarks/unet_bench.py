@@ -1,12 +1,11 @@
-"""UNet CNN smoke bench on the real TPU (one JSON line).
+"""UNet CNN smoke bench on the GPU (one JSON line).
 
 The reference's CNN path was its *complete* DDP story
-(models_cnn.py:462-565); this framework's UNet runs on XLA:TPU native
-convs (`lax.conv_general_dilated`, SURVEY §2.2 "no custom kernel
-needed"). This bench demonstrates that parity claim on hardware: a
-reference-config UNet (124 member-channels → 1, hidden 64, depth 4,
-bf16 compute) forward + train step, timed with the honest scan-chain
-harness (see CLAUDE.md "Benchmark timing").
+(models_cnn.py:462-565); this framework's UNet runs on XLA's own convs
+(`lax.conv_general_dilated`, SURVEY §2.2 "no custom kernel needed"). This
+bench times a reference-config UNet (124 member-channels → 1, hidden 64,
+depth 4, bf16 compute) forward + train step with the on-device scan-chain
+harness (``gwen.profiling.scan_timeit``).
 
     GWEN_UNET_SHAPE=8,124,128,256 python benchmarks/unet_bench.py
 """
@@ -27,16 +26,13 @@ def main() -> None:
     import jax.numpy as jnp
     import optax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gwen.compile_cache import enable_compile_cache
 
-    from gwen_tpu.nn.unet import UNet
-    from gwen_tpu.profiling import scan_timeit
-    from gwen_tpu.train import TrainState
+    enable_compile_cache()
+
+    from gwen.nn.unet import UNet
+    from gwen.profiling import scan_timeit
+    from gwen.train import TrainState
 
     shape = tuple(int(v) for v in os.environ.get(
         "GWEN_UNET_SHAPE", "8,124,128,256").split(","))

@@ -1,4 +1,4 @@
-from gwen_tpu.cli.main import cli_entry
+from gwen.cli.main import cli_entry
 
 if __name__ == "__main__":
     raise SystemExit(cli_entry())

@@ -2,7 +2,7 @@
 
 Pure-numpy derivation of the reference GCNConv math (models_gnn.py:118-184,
 i.e. PyG GCNConv): Â = D̂^{-1/2} (A + I) D̂^{-1/2} with d̂(i) = deg(i) + 1,
-layer = Â X W + b. Deliberately does NOT import gwen_tpu — the fixture pins
+layer = Â X W + b. Deliberately does NOT import gwen — the fixture pins
 the *math*, so any drift in the framework's normalization or layer semantics
 fails tests/test_models.py::test_gcn_golden_fixture.
 

@@ -9,8 +9,8 @@ import json
 import numpy as np
 import pytest
 
-from gwen_tpu.cli.main import main as cli
-from gwen_tpu.data import netcdf
+from gwen.cli.main import main as cli
+from gwen.data import netcdf
 
 T, H, C = 8, 4, 6
 

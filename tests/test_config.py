@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from gwen_tpu.config import GwenConfig
+from gwen.config import GwenConfig
 
 
 def test_defaults_match_reference():

@@ -7,11 +7,11 @@ idea, but generate it instead of shipping binary data).
 import numpy as np
 import pytest
 
-from gwen_tpu.config import DataConfig
-from gwen_tpu.data import netcdf, zarrstore
-from gwen_tpu.data.dataset import ConvEnsembleDataset, MemberGraphDataset, load_data
-from gwen_tpu.data.ingest import find_member_files, ingest
-from gwen_tpu.data.preprocess import (
+from gwen.config import DataConfig
+from gwen.data import netcdf, zarrstore
+from gwen.data.dataset import ConvEnsembleDataset, MemberGraphDataset, load_data
+from gwen.data.ingest import find_member_files, ingest
+from gwen.data.preprocess import (
     coarsen_block_mean,
     compute_scaling,
     interpolate_nans_time,
@@ -180,8 +180,8 @@ def test_multihost_helpers_single_process(tmp_path):
     import jax
     from jax.sharding import PartitionSpec as P
 
-    from gwen_tpu.data import multihost, zarrstore
-    from gwen_tpu.train import make_mesh
+    from gwen.data import multihost, zarrstore
+    from gwen.train import make_mesh
 
     arr = zarrstore.create(
         tmp_path / "mh.zarr", shape=(4, 6, 3), dims=("time", "member", "cell"),
@@ -214,8 +214,8 @@ def test_member_graph_node_batching():
 
 
 def test_meshstore_roundtrip(tmp_path):
-    from gwen_tpu.data.meshstore import load_mesh_dataset, save_mesh_dataset
-    from gwen_tpu.data.synthetic import mesh_ensemble_dataset
+    from gwen.data.meshstore import load_mesh_dataset, save_mesh_dataset
+    from gwen.data.synthetic import mesh_ensemble_dataset
 
     fields, verts, s, r = mesh_ensemble_dataset(levels=2, members=2, steps=4)
     p = save_mesh_dataset(tmp_path / "mesh.zarr", fields, s, r, verts)

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gwen_tpu import ensemble
-from gwen_tpu.data.synthetic import mesh_ensemble_dataset
-from gwen_tpu.graph import build_graph
-from gwen_tpu.nn import EncodeProcessDecode
+from gwen import ensemble
+from gwen.data.synthetic import mesh_ensemble_dataset
+from gwen.graph import build_graph
+from gwen.nn import EncodeProcessDecode
 
 
 def _setup(levels=2, members=3, steps=6):
@@ -31,7 +31,7 @@ def test_correlated_noise_is_smooth():
     white = ensemble.correlated_noise(key, g, (n, 1), smoothing_steps=0)
     smooth = ensemble.correlated_noise(key, g, (n, 1), smoothing_steps=3)
     # Smoothed noise has higher neighbor correlation: measure via aggregation.
-    from gwen_tpu.ops import aggregate_segment
+    from gwen.ops import aggregate_segment
 
     def neighbor_corr(x):
         ax = aggregate_segment(g, x)
@@ -92,8 +92,8 @@ def test_mesh_training_improves_skill():
     persistence ensemble."""
     import optax
 
-    from gwen_tpu.data.dataset import MeshEnsembleDataset
-    from gwen_tpu.train import Trainer, TrainState, mesh_loss_fn
+    from gwen.data.dataset import MeshEnsembleDataset
+    from gwen.train import Trainer, TrainState, mesh_loss_fn
 
     fields, g = _setup(levels=2, members=3, steps=10)
     ch = fields.shape[-1]
@@ -137,9 +137,9 @@ def test_ensemble_crps_training_beats_init():
     """CRPS-trained model improves fair-CRPS skill over its init."""
     import optax
 
-    from gwen_tpu.data.dataset import MeshEnsembleDataset
-    from gwen_tpu.train import Trainer, TrainState
-    from gwen_tpu.train.tasks import ensemble_crps_loss_fn
+    from gwen.data.dataset import MeshEnsembleDataset
+    from gwen.train import Trainer, TrainState
+    from gwen.train.tasks import ensemble_crps_loss_fn
 
     fields, g = _setup(levels=2, members=3, steps=10)
     ch = fields.shape[-1]
@@ -168,9 +168,9 @@ def test_ensemble_crps_training_beats_init():
 def test_rollout_training_and_sigma_calibration():
     import optax
 
-    from gwen_tpu.data.dataset import MeshEnsembleDataset
-    from gwen_tpu.train import Trainer, TrainState
-    from gwen_tpu.train.tasks import rollout_loss_fn
+    from gwen.data.dataset import MeshEnsembleDataset
+    from gwen.train import Trainer, TrainState
+    from gwen.train.tasks import rollout_loss_fn
 
     fields, g = _setup(levels=2, members=3, steps=10)
     ch = fields.shape[-1]
@@ -208,7 +208,7 @@ def test_inflation_calibration_restores_spread():
     import jax.numpy as jnp
     import numpy as np
 
-    from gwen_tpu import ensemble
+    from gwen import ensemble
 
     rng = np.random.default_rng(0)
     truth = rng.normal(size=(6, 50, 3)).astype(np.float32)

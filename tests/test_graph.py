@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gwen_tpu.graph import (
+from gwen.graph import (
     apply_order,
     bandwidth,
     build_graph,
@@ -106,7 +106,7 @@ def test_block_ell_bandwidth_guard():
 
 
 def test_multilevel_edges_union():
-    from gwen_tpu.graph import icosphere_multilevel_edges
+    from gwen.graph import icosphere_multilevel_edges
 
     verts, s, r, lv = icosphere_multilevel_edges(2, min_level=0)
     assert verts.shape[0] == 162
@@ -122,11 +122,11 @@ def test_multilevel_edges_union():
 def test_multilevel_graph_matches_union_segment():
     import jax.numpy as jnp
 
-    from gwen_tpu.graph import (
+    from gwen.graph import (
         build_multilevel_graph,
         icosphere_multilevel_edges,
     )
-    from gwen_tpu.ops import aggregate, aggregate_segment
+    from gwen.ops import aggregate, aggregate_segment
 
     verts, s, r, lv = icosphere_multilevel_edges(2)
     n = verts.shape[0]
@@ -141,11 +141,11 @@ def test_multilevel_graph_matches_union_segment():
 def test_multilevel_with_fine_ell_layout():
     import jax.numpy as jnp
 
-    from gwen_tpu.graph import (
+    from gwen.graph import (
         build_multilevel_graph,
         icosphere_multilevel_edges,
     )
-    from gwen_tpu.ops import aggregate, aggregate_segment
+    from gwen.ops import aggregate, aggregate_segment
 
     verts, s, r, lv = icosphere_multilevel_edges(3)
     n = verts.shape[0]

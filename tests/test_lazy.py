@@ -6,15 +6,15 @@ store (round-1 verdict #4; reference analog: dask laziness, utils.py:478-520).
 import numpy as np
 import pytest
 
-from gwen_tpu.config import DataConfig
-from gwen_tpu.data import zarrstore
-from gwen_tpu.data.dataset import (
+from gwen.config import DataConfig
+from gwen.data import zarrstore
+from gwen.data.dataset import (
     ConvEnsembleDataset,
     MemberGraphDataset,
     MeshEnsembleDataset,
     load_split,
 )
-from gwen_tpu.data.lazy import LazyField
+from gwen.data.lazy import LazyField
 
 pytest.importorskip("tensorstore")
 
@@ -104,7 +104,7 @@ def test_lazy_lru_caches_steps(store):
 
 
 def test_lazy_mesh_dataset(tmp_path):
-    from gwen_tpu.data.meshstore import load_mesh_dataset, save_mesh_dataset
+    from gwen.data.meshstore import load_mesh_dataset, save_mesh_dataset
 
     rng = np.random.default_rng(1)
     fields = rng.normal(size=(6, 3, 20, 2)).astype(np.float32)
@@ -139,10 +139,10 @@ def test_train_mesh_cli_lazy_smoke(tmp_path):
     """End-to-end: train-mesh consumes a zarr store through the lazy path."""
     import jax
 
-    from gwen_tpu.cli.train_mesh import main as mesh_main
-    from gwen_tpu.config import GwenConfig
-    from gwen_tpu.data.meshstore import save_mesh_dataset
-    from gwen_tpu.data.synthetic import mesh_ensemble_dataset
+    from gwen.cli.train_mesh import main as mesh_main
+    from gwen.config import GwenConfig
+    from gwen.data.meshstore import save_mesh_dataset
+    from gwen.data.synthetic import mesh_ensemble_dataset
 
     fields, verts, s, r = mesh_ensemble_dataset(levels=1, members=3, steps=6, seed=0)
     save_mesh_dataset(tmp_path / "mesh.zarr", fields, s, r, verts)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 from scipy import stats
 
-from gwen_tpu import losses
+from gwen import losses
 
 
 def test_masked_node_l1():

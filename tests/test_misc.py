@@ -3,15 +3,16 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-import gwen_tpu
-from gwen_tpu import profiling
-from gwen_tpu.logging_utils import get_logger, setup_logger, suppress_warnings
+import gwen
+from gwen import profiling
+from gwen.logging_utils import get_logger, setup_logger, suppress_warnings
 
 
 def test_version_metadata():
-    assert gwen_tpu.__version__
-    assert gwen_tpu.__author__
+    assert gwen.__version__
+    assert gwen.__author__
 
 
 def test_setup_logger_singleton(tmp_path):
@@ -45,3 +46,108 @@ def test_device_memory_stats():
     stats = profiling.device_memory_stats()
     assert isinstance(stats, list) and stats
     assert "device" in stats[0]
+
+
+# ---------------------------------------------------------- compile cache
+
+
+def test_compile_cache_honours_env_var(monkeypatch, tmp_path):
+    import jax
+
+    from gwen import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.cache_dir() == tmp_path
+    assert compile_cache.enable_compile_cache() == tmp_path
+    # JAX reads the variable itself; the helper sets nothing
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_fixed_checkout_path(monkeypatch):
+    import jax
+
+    from gwen import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    want = compile_cache.CHECKOUT / ".jax_cache"
+    assert (compile_cache.CHECKOUT / "gwen" / "compile_cache.py").exists()
+    assert compile_cache.enable_compile_cache() == want
+    assert jax.config.jax_compilation_cache_dir == str(want)
+
+
+# ------------------------------------------------------ installation / GPU
+
+
+def _run(cmd, cwd):
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    return subprocess.run([sys.executable, *cmd], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_main_path_imports_no_flax_or_orbax():
+    from pathlib import Path
+
+    code = ("import sys, gwen.cli.train_mesh, gwen.cli.export_cli, "
+            "gwen.serve, gwen.train; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} "
+            "& {'flax', 'orbax'}))")
+    res = _run(["-c", code], Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+_ALIAS_CHECKS = {
+    # The former package name resolves to the same module objects, imports
+    # neither flax nor orbax, and warns.
+    "import": ["-c",
+               "import warnings, sys\n"
+               "with warnings.catch_warnings(record=True) as w:\n"
+               "    warnings.simplefilter('always')\n"
+               "    import gwen_tpu.cli.train_mesh, gwen_tpu.cli.export_cli\n"
+               "    import gwen_tpu.serve\n"
+               "import gwen.cli.train_mesh, gwen.serve\n"
+               "from gwen_tpu.cli.main import main\n"
+               "assert gwen_tpu.cli.train_mesh is gwen.cli.train_mesh\n"
+               "assert gwen_tpu.serve is gwen.serve\n"
+               "assert gwen.serve.__spec__.name == 'gwen.serve'\n"
+               "assert main is gwen.cli.main.main\n"
+               "assert gwen_tpu.GwenConfig is gwen.GwenConfig\n"
+               "assert any(x.category is DeprecationWarning for x in w)\n"
+               "print(sorted({m.split('.')[0] for m in sys.modules}"
+               " & {'flax', 'orbax'}))"],
+    "module": ["-m", "gwen_tpu", "runs", "--help"],
+}
+
+
+@pytest.mark.parametrize("how", sorted(_ALIAS_CHECKS))
+def test_former_package_name_still_works(how):
+    from pathlib import Path
+
+    res = _run(_ALIAS_CHECKS[how], Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    if how == "import":
+        assert res.stdout.strip() == "[]"
+    else:
+        assert "usage:" in res.stdout
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_gpu(where, tmp_path):
+    """The smoke script exits non-zero and prints no result on the CPU,
+    and in a directory that holds nothing else of the repository."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    cwd = root
+    if where == "alone":
+        shutil.copy(root / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    res = _run(["chip_smoke.py"], cwd)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout

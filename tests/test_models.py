@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gwen_tpu.graph import build_graph, complete_edges, to_dense
-from gwen_tpu.nn import EncodeProcessDecode, GCNStack, gcn_apply, gcn_init
-from gwen_tpu.nn.core import count_params
+from gwen.graph import build_graph, complete_edges, to_dense
+from gwen.nn import EncodeProcessDecode, GCNStack, gcn_apply, gcn_init
+from gwen.nn.core import count_params
 
 
 def _member_graph(n=8):
@@ -53,18 +53,18 @@ def test_gcn_golden_fixture_all_backends():
     verdict #7): tests/data/gcn_golden.npz holds a pure-numpy derivation of
     the reference GCNConv math (models_gnn.py:118-184) on a hand-checkable
     5-node path graph — generated by tests/data/make_gcn_golden.py WITHOUT
-    importing gwen_tpu. Fails if GCN normalization or layer semantics ever
+    importing gwen. Fails if GCN normalization or layer semantics ever
     drift from the reference's."""
     from pathlib import Path
 
-    from gwen_tpu.graph import (
+    from gwen.graph import (
         to_block_ell,
         to_block_tiles,
         to_sliding_dense,
         to_sliding_rank1,
         to_windowed_dense,
     )
-    from gwen_tpu.ops import aggregate
+    from gwen.ops import aggregate
 
     fx = np.load(Path(__file__).parent / "data" / "gcn_golden.npz")
     n = int(fx["num_nodes"])
@@ -109,7 +109,7 @@ def test_gcn_transform_order_equivalence():
     x = jnp.asarray(np.random.default_rng(0).normal(size=(n, 8)).astype(np.float32))
     p_wide = gcn_init(jax.random.key(0), 8, 16)  # d_out > d_in branch
     p_narrow = gcn_init(jax.random.key(0), 8, 4)  # d_out < d_in branch
-    from gwen_tpu.ops import aggregate_segment
+    from gwen.ops import aggregate_segment
 
     for p in (p_wide, p_narrow):
         got = gcn_apply(p, g, x)
@@ -135,7 +135,7 @@ def test_gradients_flow():
     target_mask = jnp.array([False] * 4 + [True] * 2)
 
     def loss_fn(p):
-        from gwen_tpu.losses import masked_node_l1
+        from gwen.losses import masked_node_l1
 
         out = m.apply(p, g, x)
         return masked_node_l1(out, x * 0.5, target_mask)
@@ -163,8 +163,8 @@ def test_interaction_processor():
     """MeshGraphNets-style edge-MLP processor trains and differs from GCN."""
     import optax
 
-    from gwen_tpu.graph import build_graph, icosphere_edges
-    from gwen_tpu.nn.interaction import interaction_apply, interaction_init
+    from gwen.graph import build_graph, icosphere_edges
+    from gwen.nn.interaction import interaction_apply, interaction_init
 
     verts, s, r = icosphere_edges(1)
     n = verts.shape[0]
@@ -210,8 +210,8 @@ def test_epd_remat_modes_match():
     import jax.numpy as jnp
     import numpy as np
 
-    from gwen_tpu.graph import apply_order, build_graph, icosphere_edges, rcm_order
-    from gwen_tpu.nn import EncodeProcessDecode
+    from gwen.graph import apply_order, build_graph, icosphere_edges, rcm_order
+    from gwen.nn import EncodeProcessDecode
 
     verts, s, r = icosphere_edges(2)
     n = verts.shape[0]
@@ -248,18 +248,18 @@ def test_epd_remat_save_agg_attention():
     import jax.numpy as jnp
     import numpy as np
 
-    from gwen_tpu.graph import (
+    from gwen.graph import (
         apply_order, build_graph, icosphere_edges, kd_patch_order,
         to_diag_window,
     )
-    from gwen_tpu.nn import EncodeProcessDecode
+    from gwen.nn import EncodeProcessDecode
 
     verts, s, r = icosphere_edges(3)
     n = verts.shape[0]
     perm = kd_patch_order(verts, s, r, n, leaf_size=64)
     s2, r2, _ = apply_order(perm, s, r)
     dw = to_diag_window(build_graph(s2, r2, n), window_size=128,
-                        block_size=32, superblock=4, transpose_tables=True)
+                        block_size=32, superblock=4)
     x = jnp.asarray(np.random.default_rng(1).normal(size=(n, 3)),
                     jnp.float32)
     params = None

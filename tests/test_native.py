@@ -5,9 +5,9 @@ import time
 import numpy as np
 import pytest
 
-from gwen_tpu import native
-from gwen_tpu.graph import apply_order, bandwidth, icosphere_edges
-from gwen_tpu.graph.reorder import rcm_order
+from gwen import native
+from gwen.graph import apply_order, bandwidth, icosphere_edges
+from gwen.graph.reorder import rcm_order
 
 pytestmark = pytest.mark.skipif(
     native.get_lib() is None, reason="g++ toolchain unavailable"

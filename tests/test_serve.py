@@ -1,14 +1,15 @@
 """Serving artifact tests: pytree codec round-trip, export→load→step parity,
 CLI export/predict end-to-end (CPU; the exported computation is the
-segment/XLA path off-TPU)."""
+segment/XLA path on the CPU)."""
 
 import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from gwen_tpu.graph import (
+from gwen.graph import (
     apply_order,
     build_graph,
     icosphere_edges,
@@ -16,8 +17,8 @@ from gwen_tpu.graph import (
     rcm_order,
     to_diag_window,
 )
-from gwen_tpu.nn import EncodeProcessDecode
-from gwen_tpu.serve import ServingModel, export_model, pack_tree, unpack_tree
+from gwen.nn import EncodeProcessDecode
+from gwen.serve import ServingModel, export_model, pack_tree, unpack_tree
 
 
 def test_pack_tree_roundtrip_graph_containers():
@@ -26,7 +27,7 @@ def test_pack_tree_roundtrip_graph_containers():
     perm = kd_patch_order(verts, s, r, n, leaf_size=64)
     s, r, _ = apply_order(perm, s, r)
     dw = to_diag_window(build_graph(s, r, n), window_size=128, block_size=32,
-                        superblock=4, transpose_tables=True)
+                        superblock=4, compact_escapes=True)
     leaves: list = []
     spec = pack_tree({"graph": dw, "extra": (1, None, "x", [2.5, True])},
                      leaves)
@@ -35,7 +36,9 @@ def test_pack_tree_roundtrip_graph_containers():
     dw2 = back["graph"]
     assert back["extra"] == (1, None, "x", [2.5, True])
     assert type(dw2) is type(dw)
-    assert dw2.t_max == dw.t_max and dw2.window_size == dw.window_size
+    assert dw2.superblock == dw.superblock
+    assert dw2.window_size == dw.window_size
+    assert dw2.esc2_graph.receivers_sorted
     flat1 = jax.tree_util.tree_leaves(dw)
     flat2 = jax.tree_util.tree_leaves(dw2)
     assert len(flat1) == len(flat2)
@@ -98,10 +101,44 @@ def test_export_scan_rollout(tmp_path):
     np.testing.assert_allclose(got, np.stack(want), rtol=1e-5, atol=1e-5)
 
 
+def test_export_needs_no_flatbuffers(tmp_path, monkeypatch):
+    """The artifact is written and read without JAX's flatbuffers-based
+    serializer (the package may be missing where the model is served)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "flatbuffers", None)
+    model, params, g, n = _tiny_model_and_graph()
+    x = np.random.default_rng(3).normal(size=(n, 3)).astype(np.float32)
+    path = export_model(model, params, g, x, tmp_path / "art",
+                        rollout_steps=2)
+    sm = ServingModel.load(path)
+    np.testing.assert_allclose(
+        np.asarray(sm.rollout(jnp.asarray(x), 2))[-1],
+        np.asarray(model.apply(params, g, model.apply(params, g, x))),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("format", None, "format"),
+    ("jax_version", "0.0.1", "JAX 0.0.1"),
+], ids=["serialize_format", "other_jax"])
+def test_load_refuses_foreign_artifact(tmp_path, field, value, match):
+    """An artifact from an earlier format or another JAX version fails to
+    load with the reason, not deep inside jax.export."""
+    model, params, g, n = _tiny_model_and_graph()
+    x = np.zeros((n, 3), np.float32)
+    path = export_model(model, params, g, x, tmp_path / "art")
+    meta = json.loads((path / "meta.json").read_text())
+    meta[field] = value
+    (path / "meta.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match=match):
+        ServingModel.load(path)
+
+
 def test_export_load_step_bf16(tmp_path):
     # np.savez degrades ml_dtypes bfloat16 to raw void '|V2' on reload; the
-    # pack_tree dtype record must view it back (every TPU/attention export
-    # has bf16 leaves — ADVICE r3 high).
+    # npz codec's dtype record must view it back (every bf16 model export
+    # has bf16 leaves).
     model, params, g, n = _tiny_model_and_graph()
     params = jax.tree_util.tree_map(
         lambda a: a.astype(jnp.bfloat16) if a.dtype == jnp.float32 else a,
@@ -121,7 +158,7 @@ def test_export_load_step_bf16(tmp_path):
 
 
 def test_cli_export_predict(tmp_path, capsys):
-    from gwen_tpu.cli.main import main as cli
+    from gwen.cli.main import main as cli
 
     # Seed the registry with a trained tiny mesh run, then export + predict.
     assert cli(["train-mesh", "--members", "2", "--steps", "4",
@@ -150,8 +187,6 @@ def test_cli_export_predict(tmp_path, capsys):
 
     # A CLI override conflicting with the run's stored hyperparameters must
     # be rejected (same param shapes → would serve silently wrong preds).
-    import pytest
-
     with pytest.raises(ValueError, match="attn_heads"):
         cli(["export", "--out", str(tmp_path / "art2"),
              "model.attn_heads=4", "run.experiment=SRV",

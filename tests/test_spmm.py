@@ -1,20 +1,31 @@
-"""Pallas SpMM kernel equivalence tests (interpreter mode on CPU; the same
-code path compiles with Mosaic on TPU — validated by bench/verify on device).
+"""Aggregation equivalence tests on the CPU.
+
+The diagonal-window Triton kernel runs here in Pallas interpret mode (the
+test passes ``interpret=True`` itself); its plain-XLA form, the older window
+layouts' jnp aggregations, the escape composite and the platform dispatch
+are checked against ``segment_sum``. The compiled kernel is checked on the
+GPU by the ``gpu``-marked test at the end and by ``chip_smoke.py``.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from gwen_tpu.graph import (
+from gwen.graph import (
     apply_order,
     build_graph,
     icosphere_edges,
+    kd_patch_order,
     rcm_order,
-    to_block_ell,
+    to_diag_window,
 )
-from gwen_tpu.ops import aggregate_segment
-from gwen_tpu.ops.spmm_pallas import spmm_block_ell
+from gwen.ops import aggregate, aggregate_segment
+from gwen.ops.aggregate import aggregate_diag_window_reference
+
+TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _mesh_graph(levels=2):
@@ -22,403 +33,113 @@ def _mesh_graph(levels=2):
     n = verts.shape[0]
     perm = rcm_order(s, r, n)
     s, r, _ = apply_order(perm, s, r)
-    g = build_graph(s, r, n)
-    return g, to_block_ell(g, block_size=32), n
+    return build_graph(s, r, n), n
 
 
-def test_spmm_matches_segment():
-    g, be, n = _mesh_graph()
-    x = jnp.asarray(np.random.default_rng(0).normal(size=(n, 24)).astype(np.float32))
-    got = spmm_block_ell(be, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
+def _kd_graph(levels=3, leaf_size=128):
+    verts, s, r = icosphere_edges(levels)
+    n = verts.shape[0]
+    perm = kd_patch_order(verts, s, r, n, leaf_size=leaf_size)
+    s, r, _ = apply_order(perm, s, r)
+    return build_graph(s, r, n), n
 
 
-def test_spmm_batched():
-    g, be, n = _mesh_graph()
-    xb = jnp.asarray(np.random.default_rng(1).normal(size=(3, n, 10)).astype(np.float32))
-    got = spmm_block_ell(be, xb)
+def _kd_diag_graph(levels=3, window_size=256, block=32, superblock=4, **kw):
+    g, n = _kd_graph(levels)
+    dw = to_diag_window(g, window_size=window_size, block_size=block,
+                        superblock=superblock, **kw)
+    return g, dw, n
+
+
+def _x(shape, seed):
+    return jnp.asarray(np.random.default_rng(seed).normal(size=shape)
+                       .astype(np.float32))
+
+
+def _grad_pair(agg, g, x, fn=jnp.sin):
+    f = lambda xx: jnp.sum(fn(agg(xx)))  # noqa: E731
+    fr = lambda xx: jnp.sum(fn(aggregate_segment(g, xx)))  # noqa: E731
+    return jax.grad(f)(x), jax.grad(fr)(x)
+
+
+# ------------------------------------- older window layouts (jnp aggregation)
+
+
+def _layout(name, g):
+    from gwen import graph as gr
+
+    return {
+        "block_ell": lambda: gr.to_block_ell(g, block_size=32),
+        "block_tiles": lambda: gr.to_block_tiles(g, block_size=32),
+        "windowed_dense": lambda: gr.to_windowed_dense(g, block_size=32),
+        "sliding_dense": lambda: gr.to_sliding_dense(g, block_size=32),
+        "sliding_rank1": lambda: gr.to_sliding_rank1(g, block_size=32),
+        "sliding_packed": lambda: gr.to_sliding_packed(g, block_size=32),
+    }[name]()
+
+
+LAYOUTS = ["block_ell", "block_tiles", "windowed_dense", "sliding_dense",
+           "sliding_rank1", "sliding_packed"]
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_layout_matches_segment(name):
+    g, n = _mesh_graph(levels=3)
+    lay = _layout(name, g)
+    x = _x((n, 24), 1)
+    np.testing.assert_allclose(np.asarray(aggregate(lay, x)),
+                               np.asarray(aggregate_segment(g, x)), **TOL)
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_layout_batched_and_grad(name):
+    g, n = _mesh_graph()
+    lay = _layout(name, g)
+    xb = _x((2, n, 8), 2)
     want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    assert got.shape == xb.shape
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_gradient():
-    g, be, n = _mesh_graph()
-    x = jnp.asarray(np.random.default_rng(2).normal(size=(n, 8)).astype(np.float32))
-
-    f = lambda xx: jnp.sum(jnp.sin(spmm_block_ell(be, xx)))
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))
-    ga = jax.grad(f)(x)
-    gr = jax.grad(fr)(x)
-    np.testing.assert_allclose(np.asarray(ga), np.asarray(gr), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_under_jit():
-    g, be, n = _mesh_graph()
-    x = jnp.asarray(np.random.default_rng(3).normal(size=(n, 16)).astype(np.float32))
-    got = jax.jit(lambda xx: spmm_block_ell(be, xx))(x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-# ----------------------------------------------------------- tile (BSR) kernel
-
-
-def test_block_tiles_reference_matches_segment():
-    from gwen_tpu.graph import to_block_tiles
-    from gwen_tpu.ops import aggregate_block_tiles_reference
-
-    g, _, n = _mesh_graph()
-    bt = to_block_tiles(g, block_size=32)
-    x = jnp.asarray(np.random.default_rng(5).normal(size=(n, 24)).astype(np.float32))
-    got = aggregate_block_tiles_reference(bt, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_tiles_matches_segment():
-    from gwen_tpu.graph import to_block_tiles
-    from gwen_tpu.ops.spmm_pallas import spmm_block_tiles
-
-    g, _, n = _mesh_graph()
-    bt = to_block_tiles(g, block_size=32)
-    x = jnp.asarray(np.random.default_rng(6).normal(size=(n, 24)).astype(np.float32))
-    got = spmm_block_tiles(bt, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_tiles_batched_and_grad():
-    from gwen_tpu.graph import to_block_tiles
-    from gwen_tpu.ops.spmm_pallas import spmm_block_tiles
-
-    g, _, n = _mesh_graph()
-    bt = to_block_tiles(g, block_size=32)
-    xb = jnp.asarray(np.random.default_rng(7).normal(size=(2, n, 8)).astype(np.float32))
-    got = spmm_block_tiles(bt, xb)
-    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-    x = xb[0]
-    f = lambda xx: jnp.sum(jnp.cos(spmm_block_tiles(bt, xx)))
-    fr = lambda xx: jnp.sum(jnp.cos(aggregate_segment(g, xx)))
-    ga = jax.grad(f)(x)
-    gr = jax.grad(fr)(x)
-    np.testing.assert_allclose(np.asarray(ga), np.asarray(gr), rtol=1e-4, atol=1e-4)
-
-
-# ------------------------------------------------------- streamed-S kernel (v3)
-
-
-def test_spmm_windowed_dense_matches_segment():
-    from gwen_tpu.graph import to_windowed_dense
-    from gwen_tpu.ops.spmm_pallas import spmm_windowed_dense
-
-    g, _, n = _mesh_graph()
-    wd = to_windowed_dense(g, block_size=32)
-    x = jnp.asarray(np.random.default_rng(8).normal(size=(n, 24)).astype(np.float32))
-    got = spmm_windowed_dense(wd, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_windowed_dense_batched_and_grad():
-    from gwen_tpu.graph import to_windowed_dense
-    from gwen_tpu.ops.spmm_pallas import spmm_windowed_dense
-
-    g, _, n = _mesh_graph()
-    wd = to_windowed_dense(g, block_size=32)
-    xb = jnp.asarray(np.random.default_rng(9).normal(size=(2, n, 8)).astype(np.float32))
-    got = spmm_windowed_dense(wd, xb)
-    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-    x = xb[0]
-    f = lambda xx: jnp.sum(jnp.tanh(spmm_windowed_dense(wd, xx)))
-    fr = lambda xx: jnp.sum(jnp.tanh(aggregate_segment(g, xx)))
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)), rtol=1e-4, atol=1e-4
-    )
-
-
-# --------------------------------------------- sliding-ring streamed-S (v4)
-
-
-def test_spmm_sliding_dense_matches_segment():
-    from gwen_tpu.graph import to_sliding_dense
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_dense
-
-    g, _, n = _mesh_graph()
-    sd = to_sliding_dense(g, block_size=32)
-    x = jnp.asarray(np.random.default_rng(10).normal(size=(n, 24)).astype(np.float32))
-    got = spmm_sliding_dense(sd, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_sliding_dense_batched_and_grad():
-    from gwen_tpu.graph import to_sliding_dense
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_dense
-
-    g, _, n = _mesh_graph()
-    sd = to_sliding_dense(g, block_size=32)
-    xb = jnp.asarray(np.random.default_rng(11).normal(size=(2, n, 8)).astype(np.float32))
-    got = spmm_sliding_dense(sd, xb)
-    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-    x = xb[0]
-    f = lambda xx: jnp.sum(jnp.sin(spmm_sliding_dense(sd, xx)))
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)), rtol=1e-4, atol=1e-4
-    )
-
-
-def test_spmm_sliding_dense_larger_mesh():
-    # Bigger mesh exercises nontrivial deltas and ring wraparound.
-    from gwen_tpu.graph import to_sliding_dense
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_dense
-
-    g, _, n = _mesh_graph(levels=3)
-    sd = to_sliding_dense(g, block_size=32)
-    assert sd.max_delta_blocks >= 1
-    x = jnp.asarray(np.random.default_rng(12).normal(size=(n, 16)).astype(np.float32))
-    got = spmm_sliding_dense(sd, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-# ------------------------------------------ int8 rank-1-factored S (v4.2)
+    np.testing.assert_allclose(np.asarray(aggregate(lay, xb)),
+                               np.asarray(want), **TOL)
+    ga, gr = _grad_pair(lambda xx: aggregate(lay, xx), g, xb[0])
+    np.testing.assert_allclose(np.asarray(ga), np.asarray(gr), **TOL)
 
 
 def test_rank1_scales_recovered_and_verified():
-    from gwen_tpu.graph import rank1_scales
+    from gwen.graph import rank1_scales
 
-    g, _, n = _mesh_graph()
+    g, n = _mesh_graph()
     a = rank1_scales(g)
     assert a.shape == (n,)
     # icosphere: 12 pentagon nodes (deg 5 → d̂=6), rest hexagons (d̂=7).
     assert np.allclose(np.sort(np.unique(np.round(a, 6))),
                        np.sort(np.unique(np.round(
                            [1 / np.sqrt(6), 1 / np.sqrt(7)], 6))))
-    # Non-rank-1 weights must be rejected.
-    import pytest
-    from gwen_tpu.graph import build_graph
-
     bad = build_graph(np.array([0, 1, 0, 1]), np.array([1, 0, 0, 1]), 2,
                       normalize=False, weights=np.array([1.0, 2.0, 1.0, 1.0]))
     with pytest.raises(ValueError):
         rank1_scales(bad)
 
 
-def test_spmm_sliding_rank1_matches_segment():
-    from gwen_tpu.graph import to_sliding_rank1
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_rank1
-
-    g, _, n = _mesh_graph(levels=3)
-    sr = to_sliding_rank1(g, block_size=32)
-    assert sr.core.s_mat.dtype == np.int8
-    x = jnp.asarray(np.random.default_rng(13).normal(size=(n, 24)).astype(np.float32))
-    got = spmm_sliding_rank1(sr, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-    # aggregate() dispatch, both backends.
-    from gwen_tpu.ops import aggregate
-
-    got2 = aggregate(sr, x)
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(want), rtol=1e-4, atol=1e-4)
-    got3 = aggregate(sr, x, backend="reference")
-    np.testing.assert_allclose(np.asarray(got3), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_sliding_rank1_batched_and_grad():
-    from gwen_tpu.graph import to_sliding_rank1
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_rank1
-
-    g, _, n = _mesh_graph()
-    sr = to_sliding_rank1(g, block_size=32)
-    xb = jnp.asarray(np.random.default_rng(14).normal(size=(2, n, 8)).astype(np.float32))
-    got = spmm_sliding_rank1(sr, xb)
-    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-    x = xb[0]
-    f = lambda xx: jnp.sum(jnp.sin(spmm_sliding_rank1(sr, xx)))
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)), rtol=1e-4, atol=1e-4
-    )
-
-
-# ---------------------------------------------------------------- edge cases
-
-
-def test_spmm_odd_feature_count():
-    """Features not a multiple of 128 pad and crop correctly."""
-    from gwen_tpu.ops.spmm_pallas import spmm_block_ell
-
-    g, be, n = _mesh_graph()
-    x = jnp.asarray(np.random.default_rng(20).normal(size=(n, 37)).astype(np.float32))
-    got = spmm_block_ell(be, x)
-    want = aggregate_segment(g, x)
-    assert got.shape == (n, 37)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_wide_features_f_tiling():
-    """Feature axis wider than f_blk exercises the (block, f-tile) grid."""
-    from gwen_tpu.graph import to_windowed_dense
-    from gwen_tpu.ops.spmm_pallas import spmm_windowed_dense
-
-    g, _, n = _mesh_graph()
-    wd = to_windowed_dense(g, block_size=32)
-    x = jnp.asarray(np.random.default_rng(21).normal(size=(n, 300)).astype(np.float32))
-    got = spmm_windowed_dense(wd, x, f_blk=128)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_padded_row_input():
-    """x already padded to num_padded_nodes keeps padded rows in the output."""
-    from gwen_tpu.ops.spmm_pallas import spmm_block_ell
-
-    g, be, n = _mesh_graph()
-    n_pad = be.num_padded_nodes
-    x = jnp.zeros((n_pad, 16)).at[:n].set(
-        jnp.asarray(np.random.default_rng(22).normal(size=(n, 16)).astype(np.float32))
-    )
-    got = spmm_block_ell(be, x)
-    assert got.shape[0] == n_pad
-    want = aggregate_segment(g, x[:n])
-    np.testing.assert_allclose(np.asarray(got[:n]), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_wrong_rows_raises():
-    from gwen_tpu.ops.spmm_pallas import spmm_block_ell
-
-    g, be, n = _mesh_graph()
-    with np.testing.assert_raises(ValueError):
-        spmm_block_ell(be, jnp.zeros((n + 1, 8)))
-
-
-def test_spmm_sliding_dense_chunked_paths(monkeypatch):
-    """Tiny VMEM ring budget forces both fallbacks: batch chunking (nb_chunk
-    < B) and per-sample column chunking — results must match segment."""
-    from gwen_tpu.graph import to_sliding_dense
-    from gwen_tpu.ops import spmm_pallas
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_dense
-
-    g, _, n = _mesh_graph(levels=3)
-    sd = to_sliding_dense(g, block_size=32)
-    rng = np.random.default_rng(13)
-
-    # Budget fits exactly one (ring, 128) f32 slab -> batched path splits
-    # into single-sample chunks.
-    one_slab = sd.ring_rows * 128 * 4
-    monkeypatch.setattr(spmm_pallas, "_SLIDING_RING_VMEM_BYTES", one_slab)
-    xb = jnp.asarray(rng.normal(size=(3, n, 8)).astype(np.float32))
-    got = spmm_sliding_dense(sd, xb)
-    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-4, atol=1e-4)
-
-    # Wide unbatched features with the same budget -> column-chunk loop
-    # (f_pad 256 > w_chunk 128).
-    x = jnp.asarray(rng.normal(size=(n, 200)).astype(np.float32))
-    got = spmm_sliding_dense(sd, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-4, atol=1e-4)
-
-    # Budget below one slab: batched path falls back to per-sample calls
-    # (which then column-chunk internally).
-    monkeypatch.setattr(spmm_pallas, "_SLIDING_RING_VMEM_BYTES", one_slab // 2)
-    got = spmm_sliding_dense(sd, xb)
-    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-4, atol=1e-4)
-
-    # Gradients flow through the chunked paths.
-    f = lambda xx: jnp.sum(jnp.sin(spmm_sliding_dense(sd, xx)))
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)),
-        rtol=1e-4, atol=1e-4,
-    )
-
-
-# ------------------------------------------ bit-packed rank-1 S (v5)
-
-
-def test_spmm_sliding_packed_matches_segment():
-    from gwen_tpu.graph import to_sliding_packed
-    from gwen_tpu.ops import aggregate
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_packed
-
-    g, _, n = _mesh_graph(levels=3)
-    sp = to_sliding_packed(g, block_size=32)
-    assert sp.packed.dtype == np.uint8
-    assert sp.packed.shape[0] * 8 == sp.num_padded_nodes
-    x = jnp.asarray(np.random.default_rng(15).normal(size=(n, 24)).astype(np.float32))
-    want = aggregate_segment(g, x)
-    got = spmm_sliding_packed(sp, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-    got2 = aggregate(sp, x, backend="reference")
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_spmm_sliding_packed_batched_and_grad():
-    from gwen_tpu.graph import to_sliding_packed
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_packed
-
-    g, _, n = _mesh_graph()
-    sp = to_sliding_packed(g, block_size=32)
-    xb = jnp.asarray(np.random.default_rng(16).normal(size=(2, n, 8)).astype(np.float32))
-    got = spmm_sliding_packed(sp, xb)
-    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-    x = xb[0]
-    f = lambda xx: jnp.sum(jnp.sin(spmm_sliding_packed(sp, xx)))
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)), rtol=1e-4, atol=1e-4
-    )
-
-
 def test_sliding_packed_device_build_matches_host():
-    from gwen_tpu.graph import to_sliding_packed
+    from gwen.graph import to_sliding_packed
 
-    g, _, n = _mesh_graph()
+    g, _ = _mesh_graph()
     host = to_sliding_packed(g, block_size=32)
     dev = to_sliding_packed(g, block_size=32, device_build=True)
     np.testing.assert_array_equal(np.asarray(dev.packed), host.packed)
 
 
-# -------------------------------- escape-window sliding layout (v6: narrow
-# window + symmetrized out-of-window COO fixup; kd_patch_order ordering)
+def test_build_graph_sorts_receivers():
+    g, n = _mesh_graph()
+    r = np.asarray(g.receivers)
+    assert g.receivers_sorted and np.all(np.diff(r) >= 0)
+    # padding edges are inert (zero weight) and keep the order
+    assert np.all(np.asarray(g.weights)[g.num_edges:] == 0)
 
 
-def _kd_escape_graph(levels=3, leaf_size=128, window_size=256, block=32):
-    from gwen_tpu.graph import build_graph, kd_patch_order, to_sliding_dense
-    from gwen_tpu.graph.build import icosphere_edges
-
-    verts, s, r = icosphere_edges(levels)
-    n = verts.shape[0]
-    perm = kd_patch_order(verts, s, r, n, leaf_size=leaf_size)
-    s, r, _ = apply_order(perm, s, r)
-    g = build_graph(s, r, n)
-    sd = to_sliding_dense(g, block_size=block, window_size=window_size)
-    return g, sd, n
+# ------------------------------------------------ escape-window layouts
 
 
 def test_kd_patch_order_is_permutation():
-    from gwen_tpu.graph import kd_patch_order
-    from gwen_tpu.graph.build import icosphere_edges
-
     verts, s, r = icosphere_edges(2)
     n = verts.shape[0]
     perm = kd_patch_order(verts, s, r, n, leaf_size=64)
@@ -426,47 +147,28 @@ def test_kd_patch_order_is_permutation():
     assert np.array_equal(np.sort(perm), np.arange(n))
 
 
-def test_escape_window_layout_matches_segment():
-    g, sd, n = _kd_escape_graph()
-    # The narrowed window must actually produce escapes for this test to
-    # exercise the fixup path.
+def test_escape_window_sliding_layout():
+    from gwen.graph import to_sliding_dense
+    from gwen.ops.aggregate import aggregate_sliding_dense_reference
+
+    g, n = _kd_graph()
+    sd = to_sliding_dense(g, block_size=32, window_size=256)
     assert sd.escape is not None and sd.escape.num_edges > 0
     # In-window + escape edges account for every edge exactly once.
-    s01 = np.asarray(sd.s_mat) != 0
-    assert s01.sum() + sd.escape.num_edges == g.num_edges
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_dense
-
-    x = jnp.asarray(np.random.default_rng(21).normal(size=(n, 24)).astype(np.float32))
-    got = spmm_sliding_dense(sd, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-    # The jnp reference takes the same composite path.
-    from gwen_tpu.ops.aggregate import aggregate_sliding_dense_reference
-
-    ref = aggregate_sliding_dense_reference(sd, x)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_escape_window_grad_and_batched():
-    from gwen_tpu.ops.spmm_pallas import spmm_sliding_dense
-
-    g, sd, n = _kd_escape_graph()
-    xb = jnp.asarray(np.random.default_rng(22).normal(size=(2, n, 8)).astype(np.float32))
-    got = spmm_sliding_dense(sd, xb)
+    assert (np.asarray(sd.s_mat) != 0).sum() + sd.escape.num_edges \
+        == g.num_edges
+    xb = _x((2, n, 8), 3)
     want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-    x = xb[0]
-    f = lambda xx: jnp.sum(jnp.sin(spmm_sliding_dense(sd, xx)))
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)), rtol=1e-4, atol=1e-4
-    )
+    got = aggregate_sliding_dense_reference(sd, xb)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
+    ga, gr = _grad_pair(lambda xx: aggregate_sliding_dense_reference(sd, xx),
+                        g, xb[0])
+    np.testing.assert_allclose(np.asarray(ga), np.asarray(gr), **TOL)
 
 
 def test_escape_set_is_symmetric():
-    _, sd, _ = _kd_escape_graph()
-    esc = sd.escape
+    _, dw, _ = _kd_diag_graph()
+    esc = dw.escape
     e = esc.num_edges
     s, r = np.asarray(esc.senders[:e]), np.asarray(esc.receivers[:e])
     fwd = set(zip(s.tolist(), r.tolist()))
@@ -474,8 +176,7 @@ def test_escape_set_is_symmetric():
 
 
 def test_forced_window_start_rejects_escaping_edges():
-    import pytest
-    from gwen_tpu.graph.graph import ell_tables
+    from gwen.graph.graph import ell_tables
 
     s = np.array([0, 90], np.int64)
     r = np.array([0, 1], np.int64)
@@ -485,96 +186,9 @@ def test_forced_window_start_rejects_escaping_edges():
                    window_size=64, forced_window_start=np.zeros(1, np.int64))
 
 
-# -------------------------------- diagonal-window superblock layout (the
-# v6 kernel: implicit-diagonal windows, window-relative S, superblocked DMA)
-
-
-def _kd_diag_graph(levels=3, leaf_size=128, window_size=256, block=32,
-                   superblock=4):
-    from gwen_tpu.graph import build_graph, kd_patch_order, to_diag_window
-    from gwen_tpu.graph.build import icosphere_edges
-
-    verts, s, r = icosphere_edges(levels)
-    n = verts.shape[0]
-    perm = kd_patch_order(verts, s, r, n, leaf_size=leaf_size)
-    s, r, _ = apply_order(perm, s, r)
-    g = build_graph(s, r, n)
-    dw = to_diag_window(g, window_size=window_size, block_size=block,
-                        superblock=superblock)
-    return g, dw, n
-
-
-def test_diag_window_matches_segment():
-    from gwen_tpu.ops.spmm_pallas import spmm_diag_window
-
-    g, dw, n = _kd_diag_graph()
-    # The narrowed window must produce escapes so the fixup path runs.
-    assert dw.escape is not None and dw.escape.num_edges > 0
-    s01 = np.asarray(dw.s_mat) != 0
-    assert s01.sum() + dw.escape.num_edges == g.num_edges
-    x = jnp.asarray(np.random.default_rng(31).normal(size=(n, 24)).astype(np.float32))
-    got = spmm_diag_window(dw, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-    # The jnp reference takes the same composite path.
-    from gwen_tpu.ops.aggregate import aggregate_diag_window_reference
-
-    ref = aggregate_diag_window_reference(dw, x)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_diag_window_grad_and_batched():
-    from gwen_tpu.ops.spmm_pallas import spmm_diag_window
-
-    g, dw, n = _kd_diag_graph()
-    xb = jnp.asarray(np.random.default_rng(32).normal(size=(2, n, 8)).astype(np.float32))
-    got = spmm_diag_window(dw, xb)
-    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-    x = xb[0]
-    f = lambda xx: jnp.sum(jnp.sin(spmm_diag_window(dw, xx)))
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)), rtol=1e-4, atol=1e-4
-    )
-
-
-def test_diag_window_aggregate_dispatch():
-    from gwen_tpu.ops.aggregate import aggregate
-
-    g, dw, n = _kd_diag_graph()
-    x = jnp.asarray(np.random.default_rng(33).normal(size=(n, 16)).astype(np.float32))
-    got = aggregate(dw, x)
-    ref = aggregate(dw, x, backend="reference")
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
-def test_diag_window_superblock_shrinks_on_tiny_graph():
-    from gwen_tpu.graph import build_graph, to_diag_window
-    from gwen_tpu.graph.build import icosphere_edges
-    from gwen_tpu.ops.spmm_pallas import spmm_diag_window
-
-    verts, s, r = icosphere_edges(1)
-    n = verts.shape[0]  # 42 nodes — buf would exceed src rows at superblock=8
-    perm = rcm_order(s, r, n)
-    s, r, _ = apply_order(perm, s, r)
-    g = build_graph(s, r, n)
-    dw = to_diag_window(g, window_size=128, block_size=32, superblock=8)
-    x = jnp.asarray(np.random.default_rng(34).normal(size=(n, 8)).astype(np.float32))
-    got = spmm_diag_window(dw, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
-
-
 def test_escape_build_rejects_asymmetric_weights():
-    import pytest
-
-    from gwen_tpu.graph import kd_patch_order, to_diag_window, to_sliding_dense
-    from gwen_tpu.graph.build import icosphere_edges
-    from gwen_tpu.graph.graph import Graph
+    from gwen.graph import to_sliding_dense
+    from gwen.graph.graph import Graph
 
     verts, s, r = icosphere_edges(3)
     n = verts.shape[0]
@@ -583,128 +197,223 @@ def test_escape_build_rejects_asymmetric_weights():
     # Row-normalized D^-1 A weights: symmetric structure, asymmetric weights.
     deg = np.bincount(r, minlength=n).astype(np.float32)
     w = (1.0 / deg[r]).astype(np.float32)
-    e = s.shape[0]
     g = Graph(senders=s.astype(np.int32), receivers=r.astype(np.int32),
-              weights=w, num_nodes=n, num_edges=e)
+              weights=w, num_nodes=n, num_edges=s.shape[0])
     with pytest.raises(ValueError, match="not symmetric"):
         to_sliding_dense(g, block_size=32, window_size=256)
     with pytest.raises(ValueError, match="not symmetric"):
         to_diag_window(g, window_size=256, block_size=32)
 
 
-def test_diag_window_hierarchical_escape_contraction():
-    """esc2: fix computed via compaction gather + banded c2-space sliding
-    kernel + gather-back, instead of the per-edge ELL gather. Exact."""
-    from gwen_tpu.graph import build_graph, kd_patch_order, to_diag_window
-    from gwen_tpu.graph.build import icosphere_edges
-    from gwen_tpu.ops.spmm_pallas import spmm_diag_window
+def test_diag_window_covers_every_edge_once():
+    g, dw, n = _kd_diag_graph()
+    assert dw.escape is not None and dw.escape.num_edges > 0
+    assert (np.asarray(dw.s_mat) != 0).sum() + dw.escape.num_edges \
+        == g.num_edges
+    starts = np.repeat(np.asarray(dw.xbase), dw.superblock) + dw.offsets
+    assert np.all(np.diff(starts) >= 0)
+    assert starts.max() + dw.window_size <= dw.num_src_rows
+
+
+def test_compact_escape_graph_matches_escape_edges():
+    from gwen.ops.aggregate import escape_add
+
+    g, dw, n = _kd_diag_graph(compact_escapes=True)
+    c2 = dw.esc2_graph
+    assert c2.num_edges == dw.escape.num_edges and c2.receivers_sorted
+    x = _x((n, 6), 4)
+    # the compact contraction, scattered back, equals the escape composite
+    xc = jnp.take(x, jnp.asarray(dw.esc2_src), axis=0)
+    fixc = aggregate_segment(c2, xc)
+    want = escape_add(dw, x, jnp.zeros_like(x))
+    got = jnp.zeros_like(x).at[jnp.asarray(dw.esc2_src)].add(fixc)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
+
+
+# ------------------------------- diagonal-window Triton kernel (interpret)
+
+
+def _kernel(**kw):
+    from gwen.ops.spmm_pallas import spmm_diag_window
+
+    return functools.partial(spmm_diag_window, interpret=True, **kw)
+
+
+KERNEL_CASES = {
+    # name: (feature width, batch shape, launch chunk)
+    "unbatched": (24, (), 128),
+    "batched": (8, (2,), 128),
+    "batched_2d": (8, (2, 2), 128),
+    "f_not_chunk_multiple": (40, (), 32),
+    "f_wider_than_chunk": (200, (), 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_diag_kernel_matches_segment(case):
+    f, lead, chunk = KERNEL_CASES[case]
+    g, dw, n = _kd_diag_graph()
+    x = _x(lead + (n, f), 5)
+    got = _kernel(launch=(chunk, 4, 2))(dw, x)
+    want = aggregate_segment(g, x)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
+
+
+def test_diag_kernel_gradient():
+    g, dw, n = _kd_diag_graph()
+    x = _x((2, n, 8), 6)
+    ga, gr = _grad_pair(functools.partial(_kernel(), dw), g, x)
+    np.testing.assert_allclose(np.asarray(ga), np.asarray(gr), **TOL)
+
+
+@pytest.mark.parametrize("rows", ["padded", "src"])
+def test_diag_kernel_prepadded_rows(rows):
+    """x kept at num_padded_nodes (or num_src_rows) rows comes back with
+    its row count; the real rows match segment_sum and the gradient of the
+    padded chain matches too."""
+    g, dw, n = _kd_diag_graph()
+    r = dw.num_padded_nodes if rows == "padded" else dw.num_src_rows
+    x = jnp.zeros((r, 16)).at[:n].set(_x((n, 16), 7))
+    got = _kernel()(dw, x)
+    assert got.shape == (r, 16)
+    np.testing.assert_allclose(np.asarray(got[:n]),
+                               np.asarray(aggregate_segment(g, x[:n])), **TOL)
+    ga = jax.grad(lambda xx: jnp.sum(jnp.sin(_kernel()(dw, xx)[:n])))(x)
+    gr = jax.grad(lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx))))(
+        x[:n])
+    np.testing.assert_allclose(np.asarray(ga[:n]), np.asarray(gr), **TOL)
+
+
+def test_diag_kernel_under_jit_bf16():
+    g, dw32, n = _kd_diag_graph()
+    dw = to_diag_window(g, window_size=256, block_size=32, superblock=4,
+                        dtype=jnp.bfloat16)
+    x = _x((n, 32), 8)
+    got = jax.jit(_kernel())(dw, x.astype(jnp.bfloat16))
+    want = aggregate_segment(g, x)
+    assert got.dtype == jnp.bfloat16
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want),
+                               rtol=2e-2, atol=2e-2 * float(
+                                   jnp.max(jnp.abs(want))))
+
+
+def test_diag_kernel_tiny_graph_shrinks_superblock():
+    verts, s, r = icosphere_edges(1)
+    n = verts.shape[0]  # 42 nodes — the superblock cannot reach 8 blocks
+    perm = rcm_order(s, r, n)
+    s, r, _ = apply_order(perm, s, r)
+    g = build_graph(s, r, n)
+    dw = to_diag_window(g, window_size=128, block_size=32, superblock=8)
+    assert dw.superblock < 8
+    x = _x((n, 8), 9)
+    np.testing.assert_allclose(np.asarray(_kernel()(dw, x)),
+                               np.asarray(aggregate_segment(g, x)), **TOL)
+
+
+def test_diag_kernel_wrong_rows_raises():
+    _, dw, n = _kd_diag_graph()
+    with pytest.raises(ValueError):
+        _kernel()(dw, jnp.zeros((n + 1, 8)))
+
+
+def test_diag_kernel_halo_extended_rows():
+    """The kernel core on halo-extended partition rows equals the
+    plain-XLA core on the same tables."""
+    from gwen.ops.aggregate import diag_window_core_einsum
+    from gwen.ops.spmm_pallas import diag_window_core
+    from gwen.parallel import partition_graph
+    from gwen.parallel.halo import HaloDiagGraph
 
     verts, s, r = icosphere_edges(3)
     n = verts.shape[0]
     perm = kd_patch_order(verts, s, r, n, leaf_size=128)
     s, r, _ = apply_order(perm, s, r)
-    g = build_graph(s, r, n)
-    dw = to_diag_window(g, window_size=256, block_size=32, superblock=4,
-                        esc2_min_rows=1)
-    assert dw.esc2_graph is not None and dw.esc2_src is not None
-    # The c2 contraction covers exactly the escape edges.
-    assert dw.esc2_graph.num_edges == dw.escape.num_edges
+    pg = partition_graph(s, r, n, num_parts=2, block_size=32, reorder=False,
+                         layout="diag", diag_window=128, diag_superblock=4)
+    p = 1
+    hg = HaloDiagGraph(
+        offsets=pg.diag_offsets[p], xbase=pg.diag_xbase[p],
+        s_mat=pg.s_diag[p], axis_name="graph", halo=pg.halo,
+        n_local=pg.n_local, block_size=pg.block_size,
+        window_size=pg.diag_window, superblock=pg.diag_superblock,
+        num_edges=0)
+    x_ext = _x((2, hg.ext_rows, 12), 10)
+    got = diag_window_core(hg.xbase, hg.offsets, hg.s_mat, x_ext,
+                           superblock=hg.superblock, src_rows=hg.ext_rows,
+                           interpret=True)
+    want = diag_window_core_einsum(hg, x_ext, hg.ext_rows)
+    assert got.shape == (2, pg.n_local, 12)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
 
-    x = jnp.asarray(np.random.default_rng(41).normal(size=(n, 24)).astype(np.float32))
-    got = spmm_diag_window(dw, x)
-    want = aggregate_segment(g, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
 
-    # Gradient through the composite custom VJP (bwd = fwd on cotangent).
-    f = lambda xx: jnp.sum(jnp.sin(spmm_diag_window(dw, xx)))
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))
+# ------------------------------------------- plain-XLA diag form + dispatch
+
+
+def test_diag_einsum_matches_segment_batched_and_grad():
+    g, dw, n = _kd_diag_graph()
+    xb = _x((2, n, 8), 11)
+    want = jax.vmap(lambda x: aggregate_segment(g, x))(xb)
     np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)),
-        rtol=1e-4, atol=1e-4,
-    )
-
-    # Batched input takes the same path per sample.
-    xb = jnp.stack([x, x * 0.25])
-    gotb = spmm_diag_window(dw, xb)
-    np.testing.assert_allclose(
-        np.asarray(gotb), np.asarray(jnp.stack([want, want * 0.25])),
-        rtol=1e-4, atol=1e-4,
-    )
+        np.asarray(aggregate_diag_window_reference(dw, xb)),
+        np.asarray(want), **TOL)
+    ga, gr = _grad_pair(lambda xx: aggregate_diag_window_reference(dw, xx),
+                        g, xb, fn=jnp.tanh)
+    np.testing.assert_allclose(np.asarray(ga), np.asarray(gr), **TOL)
 
 
-def test_diag_window_packed_rank1_matches_segment():
-    """packed=True (1-bit S01; rank-1 GCN weights rebuilt IN-KERNEL —
-    column/row scale streams, escape tables carrying w = a_s) must be
-    exact vs segment — fwd, grad, and batched — and must agree between
-    host and device(CPU) builds."""
-    from gwen_tpu.graph import (
-        apply_order,
-        build_graph,
-        icosphere_edges,
-        kd_patch_order,
-        to_diag_window,
-    )
-    from gwen_tpu.ops.spmm_pallas import spmm_diag_window
+def test_cpu_dispatch_never_interprets(monkeypatch):
+    """On the CPU, ``aggregate`` takes the plain-XLA form (the kernel entry
+    point is never reached); forcing the kernel without interpret mode
+    fails instead of silently interpreting."""
+    from gwen.ops import spmm_pallas
 
-    verts, s, r = icosphere_edges(3)
-    n = verts.shape[0]
-    perm = kd_patch_order(verts, s, r, n, leaf_size=64)
-    s, r, _ = apply_order(perm, s, r)
-    g = build_graph(s, r, n)
-    dw = to_diag_window(g, window_size=128, block_size=32, superblock=4,
-                        packed=True)
-    assert dw.s_mat is None and dw.s_pack is not None
-    assert dw.escape is not None and dw.escape.num_edges > 0
-    assert dw.s_pack.dtype == np.uint8
-    assert dw.s_pack.shape == (dw.num_padded_nodes // 8, dw.window_size)
+    g, dw, n = _kd_diag_graph()
+    x = _x((n, 8), 12)
 
-    x = jnp.asarray(
-        np.random.default_rng(51).normal(size=(n, 24)).astype(np.float32)
-    )
-    want = aggregate_segment(g, x)
-    got = spmm_diag_window(dw, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-4, atol=1e-4)
+    def boom(*a, **k):
+        raise AssertionError("kernel reached on the CPU")
 
-    f = lambda xx: jnp.sum(jnp.sin(spmm_diag_window(dw, xx)))  # noqa: E731
-    fr = lambda xx: jnp.sum(jnp.sin(aggregate_segment(g, xx)))  # noqa: E731
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f)(x)), np.asarray(jax.grad(fr)(x)),
-        rtol=1e-4, atol=1e-4,
-    )
+    with monkeypatch.context() as m:
+        m.setattr(spmm_pallas, "spmm_diag_window", boom)
+        got = aggregate(dw, x)
+    np.testing.assert_allclose(np.asarray(got),
+                               np.asarray(aggregate_segment(g, x)), **TOL)
+    with pytest.raises(Exception):
+        jax.block_until_ready(aggregate(dw, x, backend="pallas"))
 
-    xb = jnp.stack([x, x * 0.5])
-    gotb = spmm_diag_window(dw, xb)
-    np.testing.assert_allclose(
-        np.asarray(gotb), np.asarray(jnp.stack([want, want * 0.5])),
-        rtol=1e-4, atol=1e-4,
-    )
 
-    # Hierarchical (esc2) escape contraction with packed scales: force the
-    # banded-skeleton path (normally only large escape sets take it) —
-    # its S̃ now carries w = a_s, composed with the in-kernel a_r scale.
-    dw2 = to_diag_window(g, window_size=128, block_size=32, superblock=4,
-                         packed=True, esc2_min_rows=1)
-    assert dw2.esc2_graph is not None
-    got2 = spmm_diag_window(dw2, x)
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(want),
-                               rtol=1e-4, atol=1e-4)
-    f2 = lambda xx: jnp.sum(jnp.sin(spmm_diag_window(dw2, xx)))  # noqa: E731
-    np.testing.assert_allclose(
-        np.asarray(jax.grad(f2)(x)), np.asarray(jax.grad(fr)(x)),
-        rtol=1e-4, atol=1e-4,
-    )
+@pytest.mark.parametrize("plat,backend,want", [
+    ("cpu", "auto", "einsum"),
+    ("gpu", "auto", "GPU"),
+    ("cpu", "pallas", "pallas"),
+    ("gpu", "segment", "einsum"),
+])
+def test_platform_dispatch(monkeypatch, plat, backend, want):
+    from gwen.ops import platform
 
-    # device-build parity (on CPU the "device" is the host backend).
-    dw2 = to_diag_window(g, window_size=128, block_size=32, superblock=4,
-                         packed=True, device_build=True)
-    np.testing.assert_array_equal(np.asarray(dw2.s_pack),
-                                  np.asarray(dw.s_pack))
+    monkeypatch.setattr(jax, "default_backend", lambda: plat)
+    want = platform.GPU_DIAG_IMPL if want == "GPU" else want
+    assert platform.diag_impl(backend) == want
 
-    # packed graphs compose with attention transpose tables (round 5: the
-    # fused attention kernels unpack the S01 mask in-kernel); the packed
-    # attention golden lives in test_attention.test_windowed_attention_
-    # packed_mask.
-    dw3 = to_diag_window(g, window_size=128, block_size=32, superblock=4,
-                         packed=True, transpose_tables=True)
-    assert dw3.t_max > 0 and dw3.s_mat is None
+
+def test_unknown_platform_raises(monkeypatch):
+    from gwen.ops import platform
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    with pytest.raises(RuntimeError, match="unsupported platform"):
+        platform.diag_impl()
+    with pytest.raises(RuntimeError, match="unsupported platform"):
+        platform.attention_impl(jnp.bfloat16)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_segment_on_gpu(gpu):
+    from gwen.ops.spmm_pallas import spmm_diag_window
+
+    g, dw, n = _kd_diag_graph()
+    x = _x((2, n, 64), 13)
+    with jax.default_matmul_precision("highest"):
+        want = aggregate_segment(g, x)
+    got = jax.jit(spmm_diag_window)(dw, x)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)

@@ -10,11 +10,11 @@ import numpy as np
 import optax
 import pytest
 
-from gwen_tpu.data.dataset import MemberGraphDataset
-from gwen_tpu.graph import build_graph, complete_edges
-from gwen_tpu.nn import GCNStack
-from gwen_tpu.registry import Registry
-from gwen_tpu.train import (
+from gwen.data.dataset import MemberGraphDataset
+from gwen.graph import build_graph, complete_edges
+from gwen.nn import GCNStack
+from gwen.registry import Registry
+from gwen.train import (
     Checkpointer,
     Trainer,
     TrainState,
@@ -224,7 +224,7 @@ def test_checkpoint_auto_resume(tmp_path):
 
 
 def test_optimizer_schedules():
-    from gwen_tpu.train.optim import make_optimizer, make_schedule
+    from gwen.train.optim import make_optimizer, make_schedule
 
     cyc = make_schedule(1e-3, "cyclic", cycle_steps=100, min_lr_factor=0.1)
     assert abs(float(cyc(0)) - 1e-4) < 1e-9  # trough at cycle start
@@ -246,18 +246,61 @@ def test_optimizer_schedules():
 
 def test_checkpoint_duplicate_step_is_noop(tmp_path):
     """Regression: per-epoch best save colliding with checkpoint_every must
-    not crash (Orbax rejects duplicate steps)."""
+    not crash (the step file already exists)."""
     ckpt = Checkpointer(tmp_path / "c", max_to_keep=2)
     _, state, _ = _make_trainer()
-    ckpt.save(5, state, wait=True)
-    ckpt.save(5, state, wait=True)  # duplicate — silently skipped
+    ckpt.save(5, state)
+    ckpt.save(5, state)  # duplicate — silently skipped
     assert ckpt.latest_step() == 5
     ckpt.close()
 
 
+def test_npz_checkpointer_retention_and_bf16(tmp_path):
+    """max_to_keep prunes the oldest step files; bfloat16 leaves and
+    the step counter round-trip exactly; a wrong template is rejected."""
+    import jax.numpy as jnp
+
+    ckpt = Checkpointer(tmp_path / "c", max_to_keep=2)
+    state = {"w": jnp.arange(6, dtype=jnp.bfloat16).reshape(2, 3),
+             "step": jnp.asarray(7, jnp.int32)}
+    for step in (1, 2, 3):
+        ckpt.save(step, state)
+    assert ckpt.steps() == [2, 3]
+    got = ckpt.restore(jax.tree_util.tree_map(jnp.zeros_like, state))
+    assert got["w"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(got["w"], np.float32),
+                                  np.asarray(state["w"], np.float32))
+    assert int(got["step"]) == 7
+    assert ckpt.restore(state, step=2)["w"].shape == (2, 3)
+    with pytest.raises(ValueError, match="leaves"):
+        ckpt.restore({"w": state["w"]})
+    with pytest.raises(FileNotFoundError):
+        Checkpointer(tmp_path / "empty").restore(state)
+
+
+def test_registry_params_roundtrip_without_template(tmp_path):
+    """params.npz + params.json keep nested dict structure and dtypes."""
+    import jax.numpy as jnp
+
+    reg = Registry(tmp_path)
+    run = reg.create_run("exp")
+    params = {"enc": {"w": jnp.ones((2, 3), jnp.bfloat16),
+                      "b": jnp.zeros((3,))},
+              "dec": [jnp.arange(4.0)]}
+    run.save_model(params, {"k": 1}, best_metric=1.0)
+    assert (run.path / "artifacts" / "params.npz").exists()
+    got, cfg = reg.load_best_model("exp")
+    assert cfg == {"k": 1}
+    assert got["enc"]["w"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(got["dec"][0]),
+                                  np.arange(4.0))
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(params)
+
+
 def test_gnn_loss_uses_unmasked_target():
     """Regression: with mask_inputs batches, loss compares to ground truth."""
-    from gwen_tpu.data.dataset import MemberGraphDataset
+    from gwen.data.dataset import MemberGraphDataset
 
     data = np.abs(np.random.default_rng(7).normal(
         size=(2, N_MEMBERS, H, C))).astype(np.float32) + 1.0
@@ -280,8 +323,8 @@ def test_partial_save_agg_remat_matches_no_remat():
     fwd and grads — only the memory/recompute schedule changes."""
     import jax.numpy as jnp
 
-    from gwen_tpu.graph import build_graph, complete_edges
-    from gwen_tpu.nn import EncodeProcessDecode
+    from gwen.graph import build_graph, complete_edges
+    from gwen.nn import EncodeProcessDecode
 
     s, r = complete_edges(12)
     g = build_graph(s, r, 12)
@@ -314,10 +357,10 @@ def test_partial_save_agg_remat_matches_no_remat():
 
 
 def test_remat_policy_selection_from_budget():
-    """The L9 landscape (ROUND_NOTES r4): 15.75 GB chip, ~12 GB reserved,
-    1.34 GB per saved agg -> K=2 -> 'save_agg:2'; plenty of headroom ->
+    """An L9 budget example: 15.75 GiB budget, 12 GiB reserved, 1.34 GB
+    per saved agg -> K=2 -> 'save_agg:2'; plenty of headroom ->
     'save_agg'; none -> full remat."""
-    from gwen_tpu.train import remat_policy_for_budget, select_save_agg_steps
+    from gwen.train import remat_policy_for_budget, select_save_agg_steps
 
     n, latent, steps = 2_622_464, 256, 4
     gib = 1024**3

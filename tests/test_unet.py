@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from gwen_tpu.nn.unet import UNet
-from gwen_tpu.train import Trainer, TrainState, cnn_loss_fn
+from gwen.nn.unet import UNet
+from gwen.train import Trainer, TrainState, cnn_loss_fn
 
 
 def test_unet_forward_shape():
@@ -48,7 +48,7 @@ def test_unet_data_parallel_matches_single_device():
         pytest.skip("needs 8 virtual devices")
     from jax.sharding import PartitionSpec as P
 
-    from gwen_tpu.train.mesh import make_mesh
+    from gwen.train.mesh import make_mesh
 
     rng = np.random.default_rng(1)
     x = rng.normal(size=(8, 3, 8, 8)).astype(np.float32)

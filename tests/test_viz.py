@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gwen_tpu import viz
+from gwen import viz
 
 pytest.importorskip("matplotlib")
 pytest.importorskip("PIL")

@@ -164,9 +164,9 @@ def md_to_html(src: str) -> str:
 def _page(title: str, body: str, depth: int) -> str:
     home = "../" * depth + "index.html"
     return ("<!doctype html><html><head><meta charset='utf-8'>"
-            f"<title>{html.escape(title)} — gwen-tpu</title>"
+            f"<title>{html.escape(title)} — gwen</title>"
             f"<style>{_CSS}</style></head><body>"
-            f"<nav><a href='{home}'>gwen-tpu docs</a></nav>"
+            f"<nav><a href='{home}'>gwen docs</a></nav>"
             f"{body}</body></html>\n")
 
 
@@ -187,11 +187,11 @@ def build() -> dict[Path, str]:
         first = md.read_text().lstrip().splitlines()[0].lstrip("# ")
         links.append(f"<li><a href='{rel.as_posix()}'>"
                      f"{html.escape(first)}</a></li>")
-    index_body = ("<h1>gwen-tpu documentation</h1>"
-                  "<p>TPU-native GNN weather-ensemble framework — rendered "
+    index_body = ("<h1>gwen documentation</h1>"
+                  "<p>GNN weather-ensemble framework — rendered "
                   "from the markdown docs by <code>tools/build_docs_html.py"
                   "</code>.</p><ul>" + "".join(links) + "</ul>")
-    pages[OUT / "index.html"] = _page("gwen-tpu", index_body, 0)
+    pages[OUT / "index.html"] = _page("gwen", index_body, 0)
     return pages
 
 

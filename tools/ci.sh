@@ -22,7 +22,7 @@ else
 fi
 if command -v mypy >/dev/null 2>&1; then
   echo "== mypy =="
-  mypy gwen_tpu
+  mypy gwen
 else
   echo "!! SKIPPED: mypy (not installed — hermetic env; GH CI runs mypy)"
   SKIPPED="$SKIPPED mypy"
@@ -35,7 +35,7 @@ echo "== html docs (tools/build_docs_html.py --check) =="
 python tools/build_docs_html.py --check
 
 echo "== compileall =="
-python -m compileall -q gwen_tpu tests benchmarks bench.py __graft_entry__.py
+python -m compileall -q gwen tests benchmarks bench.py chip_smoke.py __graft_entry__.py
 
 echo "== pytest =="
 python -m pytest tests/ -q

@@ -1,8 +1,10 @@
 #!/bin/bash
-# TPU training job launcher (reference tools/job.sh was SLURM 1 node x 4 GPUs).
-# For a TPU pod slice: run this on every host (e.g. via gcloud compute tpus
-# tpu-vm ssh --worker=all); jax.distributed picks up the topology.
+# One-host GPU training launcher (the reference's tools/job.sh was SLURM,
+# 1 node x 4 GPUs). One process drives every card of the host: the
+# (data, graph) mesh spans them through mesh.data_axis / mesh.graph_axis,
+# e.g.  tools/job.sh config.json mesh.graph_axis=4
+# The compile cache goes where JAX_COMPILATION_CACHE_DIR says, else to
+# <checkout>/.jax_cache (gwen.compile_cache).
 set -euo pipefail
 CONFIG=${1:-config.json}
-export JAX_COMPILATION_CACHE_DIR=${JAX_COMPILATION_CACHE_DIR:-/tmp/jax_cache}
-python -m gwen_tpu train-mesh --config "$CONFIG" "${@:2}"
+python -m gwen train-mesh --config "$CONFIG" "${@:2}"

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Dependency-free linter (stdlib only) for gwen_tpu.
+"""Dependency-free linter (stdlib only) for gwen.
 
 The reference ships a pre-commit stack (black/isort/pylint/flake8/mypy,
 .pre-commit-config.yaml) that needs network-installed tools; this
@@ -13,7 +13,7 @@ on this repo), bare except, mutable default arguments, trailing whitespace,
 tabs in indentation, lines > 100 columns, and `== None` / `!= None`
 comparisons.
 
-Usage: python tools/lint.py [paths...]   (default: gwen_tpu tests benchmarks
+Usage: python tools/lint.py [paths...]   (default: gwen tests benchmarks
 bench.py __graft_entry__.py)
 """
 
@@ -161,7 +161,7 @@ def lint_file(path: Path) -> list[str]:
 
 
 def main(argv: list[str]) -> int:
-    targets = argv or ["gwen_tpu", "tests", "benchmarks", "bench.py",
+    targets = argv or ["gwen", "tests", "benchmarks", "bench.py",
                        "__graft_entry__.py"]
     files: list[Path] = []
     for t in targets:
